@@ -4,7 +4,7 @@ The reference ships a Qt5/OpenGL GUI whose ModelViewerWidget paints SfM
 points, camera frusta, the lidar map, and SfM-point<->lidar-point association
 lines colored by type (red=proj, blue=icp, yellow=ground)
 (src/ui/model_viewer_widget.h:125-184). A Qt GUI is out of scope for a
-headless TPU framework (SURVEY.md §7.1.7); this module provides the same
+headless accelerator framework (SURVEY.md §7.1.7); this module provides the same
 visualization as a zero-dependency artifact instead: one self-contained HTML
 file (inline WebGL1, no CDN/network) with orbit/pan/zoom controls that any
 browser opens.

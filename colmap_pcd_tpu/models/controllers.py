@@ -53,8 +53,8 @@ class ControllerOptions:
     # the lidar fork HARD-CADENCES global (spherical) BA to every 5 newly
     # registered images (controllers/incremental_mapper.h:182 — upstream
     # COLMAP uses 500); the frequent lidar-constrained global refinement is
-    # its primary drift corrector at scale, and with 500 the r5 450-image
-    # run drifted to 39 mm ATE on the ratio-only cadence
+    # its primary drift corrector at scale (with 500, a 450-image run
+    # drifted noticeably further on the ratio-only cadence)
     ba_global_images_freq: int = 5
     ba_global_points_freq: int = 250000
     # final whole-map rounds: re-run iterative global refinement at model
@@ -178,8 +178,8 @@ class IncrementalMapperController:
         merge partners found transitively by merge_tracks itself): the lidar
         fork cadences global refinement to EVERY 5 registrations
         (incremental_mapper.h:182), and a full sweep over all tracks at that
-        frequency re-examined the same long-settled points ~100x per run
-        (195 s of the r5 450-image wall). Ratio-triggered rounds and the
+        frequency re-examined the same long-settled points ~100x per run.
+        Ratio-triggered rounds and the
         final refinement keep the full sweep, so every point is still
         periodically revisited — the same local/global split the spherical
         BA itself applies."""

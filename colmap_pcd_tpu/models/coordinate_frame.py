@@ -1,7 +1,7 @@
 """Coordinate-frame estimation: gravity, Manhattan world frame, plane/ENU
 alignment.
 
-Re-designs src/estimators/coordinate_frame.{h,cc} for TPU:
+Re-designs src/estimators/coordinate_frame.{h,cc} for fixed-shape device code:
   * EstimateGravityVectorFromImageOrientation (coordinate_frame.h:59) —
     consensus over the images' downward axes, vectorized.
   * EstimateManhattanWorldFrame (coordinate_frame.h:68) — per-image line
@@ -10,7 +10,7 @@ Re-designs src/estimators/coordinate_frame.{h,cc} for TPU:
     inherently sequential, so here lines come from a dense Hough transform
     (Sobel edges -> top-K edge pixels -> [theta, rho] accumulator built as
     one-hot matmuls -> non-max-suppressed peaks -> endpoint extraction),
-    which maps onto the MXU. Vanishing points use the batched-hypothesis
+    which is dense matrix work. Vanishing points use the batched-hypothesis
     RANSAC style of ops/ransac.py.
   * AlignToPrincipalPlane / AlignToENUPlane (coordinate_frame.h:73-83).
 """
@@ -90,7 +90,7 @@ def detect_line_segments(
 
     Returns (segments [L,4] as (x1,y1,x2,y2), count). Dense Hough transform:
     the accumulator over (theta, rho) is built as one one-hot matmul per
-    theta (MXU-friendly fixed shapes), peaks are 3x3 non-max suppressed,
+    theta (fixed shapes), peaks are 3x3 non-max suppressed,
     and each peak's endpoints come from the extent of its supporting edge
     pixels along the line."""
     import jax

@@ -224,7 +224,7 @@ def run_patch_match_stereo(
 
 
 def _run_patch_match_sharded(problems, sopts, options, save_maps, mesh):
-    """Fan the per-view sweeps out over the device mesh (the TPU analog of
+    """Fan the per-view sweeps out over the device mesh (the analog of
     PatchMatchController's ThreadPool-over-GPUs, patch_match.cc:197-213).
 
     Problems are stacked into one batch: S padded to the max source count by

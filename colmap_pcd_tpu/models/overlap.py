@@ -4,8 +4,8 @@ The reference pipelines resizer->extractor->writer threads inside extraction
 (feature/extraction.h:50-148) and matcher->verifier threads inside matching
 (feature/matching.h:222-345), but the three stages themselves run strictly
 sequentially (`colmap feature_extractor && colmap *_matcher && colmap
-mapper`). On a TPU the mapper's wall time is dominated by latency (dispatch
-gaps, host bookkeeping), not device occupancy — so the chip can absorb the
+mapper`). The mapper's wall time is dominated by latency (dispatch gaps,
+host bookkeeping), not device occupancy — so the device can absorb the
 extraction and matching dispatches inside those gaps. This module runs:
 
   thread E: run_feature_extractor          (writes features to SQLite, WAL)

@@ -224,11 +224,9 @@ def run_image_undistorter(
             continue
         src = image_utils.imread_rgb(os.path.join(image_path, img.name))
         out = undistort_image(src, rec.cameras[img.camera_id], new_cams[img.camera_id])
-        from PIL import Image as PILImage
-
         dst = os.path.join(output_path, "images", img.name)
         os.makedirs(os.path.dirname(dst), exist_ok=True)
-        PILImage.fromarray(out).save(dst)
+        image_utils.imwrite(dst, out)
         n += 1
     # copy scene with undistorted observations
     import copy

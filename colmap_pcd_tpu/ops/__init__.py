@@ -1,1 +1,1 @@
-"""Device-side compute ops (JAX/XLA/Pallas)."""
+"""Device-side compute ops (JAX/XLA)."""

@@ -1,10 +1,9 @@
-"""Descriptor matching on the MXU: dot-product similarity + ratio/cross checks.
+"""Descriptor matching as one matmul: dot-product similarity + ratio/cross checks.
 
 Replaces SiftMatchGPU (lib/SiftGPU) and the CPU matcher
 (src/feature/sift.cc MatchSiftFeaturesCPU / ComputeSiftDistanceMatrix): the
-whole N1 x N2 distance matrix is one [N1,128]x[128,N2] matmul — exactly the
-shape the systolic array wants — followed by fused top-2 / ratio / cross-check
-masking. Distances follow the reference's convention: descriptors are
+whole N1 x N2 distance matrix is one [N1,128]x[128,N2] matmul — a
+tensor-core shape — followed by top-2 / ratio / cross-check reductions. Distances follow the reference's convention: descriptors are
 L2-normalized, similarity = dot product, distance = arccos(similarity)
 (sift.cc:142-165), ratio test on arccos distances, optional cross check and
 guided (epipolar-masked) variant (feature/matching.h:277-310).
@@ -38,9 +37,8 @@ def normalize_descriptors(d: Array) -> Array:
 def _best2(sim: Array, valid2: Array) -> tuple[Array, Array, Array]:
     """Top-2 similarities along axis 1 with invalid columns masked.
 
-    Two max/argmax reduction passes, NOT jax.lax.top_k(k=2): top_k lowers to
-    a full per-row sort on TPU (measured 44 ms per [2048,2048] pair in the
-    B=16 matching bank vs ~1 ms for the matmul that feeds it)."""
+    Two max/argmax reduction passes, NOT jax.lax.top_k(k=2): the passes are
+    plain reductions XLA fuses, while top_k may lower to a per-row sort."""
     sim = jnp.where(valid2[None, :] > 0, sim, -2.0)
     idx = jnp.argmax(sim, axis=1)
     s1 = jnp.max(sim, axis=1)
@@ -59,8 +57,11 @@ def match_descriptors(
 ) -> tuple[Array, Array, Array]:
     """Returns (match_idx [N1] into d2, ok [N1] bool, sim [N1] best cosine
     similarity — the match quality PROSAC-ordered verification consumes)."""
-    # unit-normalized operands, decisions tolerate ~0.4% sim error: keep the
-    # fast bf16 MXU path despite the package-wide highest-precision default
+    # unit-normalized operands, decisions tolerate ~1e-3 similarity error:
+    # Precision.DEFAULT overrides the package-wide "highest" here, and XLA
+    # runs it on the H100 as a TF32 cuBLAS GEMM (3.3e-4 max relative error
+    # on a 1024^3 product); the ok masks still agree with float64 on every
+    # row at N=2048 and N=8192 (chip_smoke parity, PERF.md)
     sim = jnp.dot(d1, d2.T, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.DEFAULT)  # [N1,N2]
     s1, s2, idx = _best2(sim, valid2)

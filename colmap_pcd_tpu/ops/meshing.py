@@ -1,10 +1,10 @@
-"""Surface meshing from oriented point clouds — TPU-first Poisson re-design.
+"""Surface meshing from oriented point clouds — device-first Poisson re-design.
 
 The reference reconstructs meshes with the vendored octree PoissonRecon
 (src/mvs/meshing.h:106-125 PoissonMeshing, lib/PoissonRecon/*) and a
 CGAL/graph-cut Delaunay mesher (src/mvs/meshing.cc DelaunayMeshing). Octrees
 and irregular graph cuts map poorly onto XLA; this module re-designs the
-indicator-function approach for the TPU:
+indicator-function approach as dense device work:
 
   1. splat oriented normals into a regular vector grid (one scatter-add),
   2. solve the screened Poisson equation  (div V = Laplacian chi)  spectrally
@@ -17,8 +17,8 @@ indicator-function approach for the TPU:
      decomposition — table-free, branch-free, numpy-vectorized) plus a
      density trim mirroring PoissonRecon's SurfaceTrimmer.
 
-Steps 1-2 run under jit on the TPU (FFTs and elementwise spectral ops are
-MXU/VPU-friendly and bandwidth-bound, exactly what the chip does well);
+Steps 1-2 run under jit on the device (FFTs and elementwise spectral ops are
+regular and bandwidth-bound, exactly what an accelerator does well);
 extraction is a vectorized host pass over the (small) indicator grid.
 """
 
@@ -258,7 +258,7 @@ def poisson_mesh(
     """Oriented point cloud -> triangle mesh (verts [V,3] world, faces [F,3]).
 
     Parity: mvs::PoissonMeshing (src/mvs/meshing.cc) — same inputs (fused
-    cloud with normals), same knobs (depth/trim), TPU spectral solve instead
+    cloud with normals), same knobs (depth/trim), device spectral solve instead
     of the vendored octree multigrid.
     """
     points = np.asarray(points, np.float32)

@@ -2,8 +2,9 @@
 
 The reference solves minimal-solver polynomials with a companion-matrix /
 Durand-Kerner pair (base/polynomial.cc: FindPolynomialRootsCompanionMatrix,
-FindPolynomialRootsDurandKerner). Non-symmetric eigendecomposition is not
-available on TPU, so the TPU-native choice is Durand-Kerner: a fixed-length
+FindPolynomialRootsDurandKerner). XLA lowers non-symmetric
+eigendecomposition only on the CPU (jnp.linalg.eig), so the device choice is
+Durand-Kerner: a fixed-length
 simultaneous-iteration in complex64 that vmaps cleanly over hypothesis banks
 (one RANSAC bank = thousands of degree-10 polynomials solved in one dispatch).
 """

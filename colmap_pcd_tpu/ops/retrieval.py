@@ -6,6 +6,11 @@ small k-means vocabulary (Lloyd iterations = one assignment matmul + segment
 sums) and VLAD aggregation; querying the index is a single [Q, k*128] x
 [k*128, N] matmul instead of an inverted-file walk. Used by vocab-tree-style
 matching and sequential loop detection (feature_pipeline.py).
+
+Precision: the descriptor/centroid/VLAD matmuls pass Precision.DEFAULT,
+overriding the package-wide "highest"; on the H100 XLA runs them as TF32 on
+the tensor cores. Operands are ~unit-norm and assignment/ranking decisions
+tolerate ~1e-3 similarity error.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""TPU-native camera-rig bundle adjustment.
+"""Camera-rig bundle adjustment on the device.
 
 Re-design of the reference RigBundleAdjuster + RigBundleAdjustmentCostFunction
 (src/optim/bundle_adjustment.h:322-379, src/optim/bundle_adjustment.cc:700-900,
@@ -12,7 +12,7 @@ problem with one autodiff functor per observation, the whole problem is one
 fixed-shape XLA program: per-observation Jacobians for the TWO camera-side
 6-blocks (rig tangent, rel tangent) via jacfwd, points eliminated per 3x3
 block (Schur), and the reduced camera system (6*(S+R) dense) solved by
-Cholesky on the MXU — same architecture as ops/ba.py, with a two-role
+Cholesky — same architecture as ops/ba.py, with a two-role
 camera-side coupling instead of one.
 
 Images that are not part of any rig are modeled uniformly: they get their own

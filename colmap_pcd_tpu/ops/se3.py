@@ -1,4 +1,4 @@
-"""Quaternion / SO(3) / SE(3) operations, vectorized for TPU.
+"""Quaternion / SO(3) / SE(3) operations, vectorized for the device.
 
 Conventions (match the reference scene model so model files interop):
   - quaternions are (w, x, y, z), normalized, scalar-first

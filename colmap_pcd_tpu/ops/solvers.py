@@ -9,12 +9,13 @@ one big batched SVD/eigh instead of a sequential loop.
 Notes vs the reference:
   * PnP minimal solver is a 6-point DLT (+ orthogonal Procrustes projection)
     rather than Kneip P3P (estimators/absolute_pose.h:52): quartic
-    root-finding needs complex eigensolves that XLA:TPU lacks; a P6P sample
+    root-finding needs non-symmetric eigensolves that XLA does not lower
+    for accelerators (jnp.linalg.eig is CPU-only); a P6P sample
     costs more RANSAC trials, which the batched hypothesis bank absorbs.
     EPnP (absolute_pose.h:97) is provided for non-minimal refits.
   * Essential matrix: Nister 5-point (up to 10 solutions per sample) with the
     degree-10 polynomial rooted by the batched Durand-Kerner of
-    ops/polynomial (companion-matrix eig is not TPU-lowerable); 8-point +
+    ops/polynomial (companion-matrix eig is CPU-only in XLA); 8-point +
     manifold projection serves as the non-minimal LO refit.
   * Fundamental: 7-point minimal (closed-form cubic) + 8-point LO refit.
 All solvers operate on normalized or pixel coordinates as documented per-fn.
@@ -46,8 +47,8 @@ def triangulate_dlt(proj1: Array, proj2: Array, uv1: Array, uv2: Array) -> Array
         ],
         axis=-2,
     )  # [...,4,4]
-    # nullspace via eigh of the 4x4 Gram matrix: batched small SVDs are the
-    # slow path on TPU, and this runs per-point inside pose recovery
+    # nullspace via eigh of the 4x4 Gram matrix: a symmetric 4x4 eigh is
+    # cheaper than a batched SVD, and this runs per-point inside pose recovery
     M = jnp.einsum("...ri,...rj->...ij", rows, rows)
     _, V = jnp.linalg.eigh(M)
     X = V[..., :, 0]  # smallest-eigenvalue eigenvector
@@ -130,9 +131,9 @@ def p3p(uv: Array, X: Array) -> tuple[Array, Array, Array]:
     (qs [4,4], ts [4,3], valid [4]). reference:
     estimators/absolute_pose.cc:47-172 (P3PEstimator::Estimate).
 
-    TPU re-design: the quartic in the distance ratio x = |PA|/|PC| is rooted
-    with the batched Durand-Kerner of ops/polynomial (companion-matrix eig is
-    not TPU-lowerable), y = |PB|/|PC| follows in closed form, and the rigid
+    Device re-design: the quartic in the distance ratio x = |PA|/|PC| is
+    rooted with the batched Durand-Kerner of ops/polynomial (companion-matrix
+    eig is CPU-only in XLA), y = |PB|/|PC| follows in closed form, and the rigid
     world->camera alignment is the existing umeyama (Kabsch) — all
     branch-free and vmappable, so one fused dispatch solves a whole RANSAC
     bank's minimal samples.
@@ -359,8 +360,8 @@ def nullspace_vecs(A: Array, k: int) -> Array:
 
     jnp.linalg.svd(A, full_matrices=True) materializes the n x n U factor:
     for the LO refits that re-solve on all (padded) correspondences n is the
-    2048-point cap, so each refit built a 2048x2048 U it never read — the
-    dominant cost of the fused EFH verification program (measured r5). The
+    2048-point cap, so each refit built a 2048x2048 U it never read — once
+    the dominant cost of the fused EFH verification program. The
     d x d (<= 9 here) symmetric eigendecomposition gives the same nullspace
     basis at O(n d^2) + O(d^3); inputs are Hartley-normalized so the squared
     conditioning of the Gram matrix is benign at f32.
@@ -589,8 +590,8 @@ def five_point(uv1: Array, uv2: Array) -> tuple[Array, Array]:
     valid [10]). reference: estimators/essential_matrix.h
     (EssentialMatrixFivePointEstimator) + base/polynomial.cc root finding.
 
-    TPU re-design: instead of the reference's Eigen Gauss-Jordan + companion
-    matrix (non-symmetric eig, unavailable on TPU), the ten cubic constraints
+    Device re-design: instead of the reference's Eigen Gauss-Jordan + companion
+    matrix (non-symmetric eig, CPU-only in XLA), the ten cubic constraints
     (det(E) = 0 and 2 E E^T E - tr(E E^T) E = 0) are expanded symbolically at
     trace time into the 20-monomial basis, reduced with one 10x10 solve, and
     the degree-10 det B(z) polynomial is rooted with the batched
@@ -796,7 +797,7 @@ def _gr6p_G(cayley: Array, f1: Array, c1: Array, f2: Array, c2: Array, w: Array)
 
     Direct O(n) evaluation per iteration replaces the reference's precomputed
     9x9 contraction tensors (estimators/generalized_relative_pose.cc:325-478,
-    a CPU-side caching scheme) — on the VPU the einsum over n rays is cheaper
+    a CPU-side caching scheme) — on the device the einsum over n rays is cheaper
     than materializing the tensor algebra, and it keeps the cost function a
     plain function of (cayley, data) so jax.grad gives the EXACT gradient the
     reference approximates by finite differences (:392-414)."""
@@ -845,7 +846,7 @@ def gr6p(
     of the 4x4 generalized-epipolar system G(R) over the Cayley rotation
     manifold, then reading the translation off G's eigenvectors.
 
-    Differences from the reference (all TPU-motivated):
+    Differences from the reference (all for fixed-shape device execution):
       * exact gradients via jax.grad through eigvalsh instead of
         finite-difference jacobians (:392-414);
       * backtracking gradient descent as a fixed-length lax.scan (the

@@ -3,13 +3,13 @@
 Replaces the reference's CUDA PatchMatch stereo (src/mvs/patch_match_cuda.cu,
 1,772 LoC — red/black checkerboard propagation with bilateral NCC) and
 StereoFusion (src/mvs/fusion.{h,cc}). PatchMatch's sequential spatial
-propagation is hostile to a 8x128-lane vector machine; the TPU-natural
-formulation of the same problem is a plane sweep:
+propagation serializes what a wide vector machine wants in parallel; the
+data-parallel formulation of the same problem is a plane sweep:
 
   * a bank of D fronto-parallel depth hypotheses per reference view,
   * every source image homography-warped onto the reference for every
     hypothesis (dense gathers),
-  * windowed zero-mean NCC computed with box-filter sums (pure VPU math,
+  * windowed zero-mean NCC computed with box-filter sums (pure elementwise math,
     no data-dependent control flow),
   * per-pixel cost aggregated over sources (mean of best-K sources — the
     analog of PatchMatch's per-pixel view selection),
@@ -35,10 +35,11 @@ Array = jax.Array
 
 
 def _mm(a: Array, b: Array) -> Array:
-    """f32-exact matmul. TPU default matmul precision is bfloat16-reduced,
-    which shifts projected pixel coordinates by O(0.5 px) at 3x3-projection
-    scale — fatal for sub-pixel stereo. These matmuls are tiny (3xHW); the
-    MXU saves nothing here, so force full precision."""
+    """f32-exact matmul: HIGHEST is true fp32 on the H100 (CUDA cores, not
+    the tensor cores). A reduced-precision default (TF32's 10-bit mantissa)
+    shifts projected pixel coordinates by a sizeable fraction of a pixel at
+    3x3-projection scale — fatal for sub-pixel stereo — and these matmuls
+    are tiny (3xHW), so reduced precision would save nothing."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -64,7 +65,7 @@ class StereoOptions(NamedTuple):
 
 
 def _box_sum(x: Array, r: int) -> Array:
-    """Windowed sum via reduce_window (fused on the VPU)."""
+    """Windowed sum via reduce_window (fused by XLA)."""
     return jax.lax.reduce_window(
         x, 0.0, jax.lax.add, (2 * r + 1, 2 * r + 1), (1, 1), "SAME"
     )

@@ -8,7 +8,7 @@ that suppresses false loop closures on repetitive structure, where raw global
 -descriptor similarity (VLAD here, Hamming-embedded BoW upstream) ranks
 look-alike but geometrically inconsistent images highly.
 
-TPU re-formulation (one fused jit per candidate pair, vmappable over the
+Device re-formulation (one fused jit per candidate pair, vmappable over the
 candidate list):
   * match candidates come from shared visual words (the VLAD codebook cell
     doubles as the word, retrieval.py) — per query feature, a bounded number

@@ -3,7 +3,7 @@
 The north-star scale-out design (SURVEY.md §5.8 / BASELINE.md): 3D points and
 their observations are partitioned into per-device blocks; every device
 assembles the camera-side normal equations for its block, the dense reduced
-camera system is psum-reduced over ICI, each device solves the (replicated)
+camera system is psum-reduced across devices, each device solves the (replicated)
 reduced system, and back-substitutes its own point block locally. Camera
 parameters are replicated; per-iteration communication is one [D,D] + [D]
 psum — independent of the number of points.

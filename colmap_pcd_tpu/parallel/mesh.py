@@ -1,10 +1,10 @@
 """Device mesh construction helpers.
 
 The reference is a single-node C++ application (SURVEY.md §2.10 — its only
-"backend" is a thread pool). The TPU build scales over a jax.sharding.Mesh:
+"backend" is a thread pool). This build scales over a jax.sharding.Mesh:
 one axis ("work") data-parallels independent work items (image pairs in
-matching, point blocks in BA); on multi-host slices the same axis spans
-hosts so collectives ride ICI within a slice and DCN across.
+matching, point blocks in BA); the same axis can span the devices of several
+hosts.
 """
 
 from __future__ import annotations

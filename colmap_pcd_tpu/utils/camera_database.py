@@ -4,7 +4,8 @@ Re-implements base/camera_database.{h,cc} (QuerySensorWidth with the same
 make/model normalization and substring-matching semantics) and the EXIF
 focal-length derivation of util/bitmap.cc:300-400 (ExifFocalLength: 35mm
 equivalent first, then focal-in-mm over the sensor width from the database,
-then the focal-plane-resolution fallback), using PIL for EXIF access.
+then the focal-plane-resolution fallback), using Pillow for EXIF access
+(PNG files carry none and are answered without it).
 
 The reference ships a generated ~3k-entry specs table (util/camera_specs.cc);
 here a curated table of common sensor families covers the frequent cases and
@@ -217,9 +218,15 @@ def exif_focal_length(path: str, width: int, height: int) -> float | None:
     2. FocalLength (mm) + database sensor width: f/sensor * max_size
     3. FocalLength + FocalPlane{XResolution,ResolutionUnit}: derived sensor
     """
-    try:
-        from PIL import ExifTags, Image
+    with open(path, "rb") as fh:
+        if fh.read(8) == b"\x89PNG\r\n\x1a\n":
+            return None  # PNG carries no camera EXIF the reader uses
+    from .image import _pillow
 
+    Image = _pillow(path)
+    from PIL import ExifTags
+
+    try:
         with Image.open(path) as im:
             exif = im.getexif()
             if not exif:

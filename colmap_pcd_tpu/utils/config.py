@@ -51,7 +51,6 @@ class SiftMatchingConfig:
     max_error: float = 4.0
     min_num_inliers: int = 15
     guided_matching: bool = False
-    use_pallas: bool = False  # fused Pallas top-2 matcher (TPU)
     # hypothesis-bank size for match-stage two-view verification; the
     # registration-time init-pair estimation keeps TwoViewOptions' 2048 —
     # matcher-stage geometry only gates pairs and seeds the correspondence

@@ -4,7 +4,7 @@ Call sites that dispatch substantial device programs add an analytic FLOP
 estimate after each call (the BA solve adds per-LM-iteration costs scaled by
 the iteration count the solver actually executed; matching adds the descriptor
 matmul; SIFT adds the pyramid convolutions). bench.py divides the accumulated
-total by wall time and the device's peak to report an honest model-FLOP
+total by wall time and the device's published peak to report a model-FLOP
 utilization. The models are approximations documented at each call site —
 good to ~2x, which is enough to show where we sit relative to the roofline
 (incremental SfM is latency- and host-logic-bound, not FLOP-bound).
@@ -35,29 +35,32 @@ class FlopCounter:
 FLOPS = FlopCounter()
 
 
-# Peak dense-matmul FLOP/s per chip by TPU generation (bf16 MXU peak; our
-# compute is f32 so the achievable ceiling is lower — MFU reported against
-# the bf16 number is conservative/honest).
+# Published dense peaks by the device_kind JAX reports, FLOP/s per precision
+# class. Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense
+# (no sparsity), at the 700 W power limit: 67 TFLOP/s fp32 on the CUDA cores,
+# 495 TF32 and 989 bf16/fp16 on the tensor cores. A card set below 700 W
+# cannot hold these clocks under load; report its power limit beside any
+# utilisation computed from them.
 _PEAK_BY_KIND = {
-    "TPU v2": 22.5e12,
-    "TPU v3": 123.0e12,  # per 2-core chip
-    "TPU v4": 137.5e12,
-    "TPU v5 lite": 98.5e12,   # v5e: 197 bf16 TFLOP/s per chip (report half for f32 parity)
-    "TPU v5e": 98.5e12,
-    "TPU v5": 229.5e12,       # v5p: 459 bf16
-    "TPU v5p": 229.5e12,
-    "TPU v6 lite": 459.0e12,  # trillium: 918 bf16
-    "TPU v6e": 459.0e12,
+    "NVIDIA H100 80GB HBM3": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12},
 }
 
+# The counted FLOPs are ~96% bundle adjustment (ops/ba.py), whose Schur
+# einsums run at HIGH — a TF32 cuBLAS GEMM on the H100 (measured by
+# chip_smoke's precision probe) — so utilisation divides by the TF32 rate.
+COUNTED_PRECISION = "tf32"
 
-def peak_flops_per_s(device) -> float:
-    """Best-effort peak for the given jax device; falls back to v5e."""
+
+def peak_flops_per_s(device, precision: str = COUNTED_PRECISION) -> float:
+    """Published peak of `device` at `precision`; an unknown device_kind is an
+    error (a guessed peak would make any utilisation figure meaningless)."""
     kind = getattr(device, "device_kind", "") or ""
-    for k, v in _PEAK_BY_KIND.items():
-        if kind.startswith(k):
-            return v
-    return 98.5e12
+    if kind not in _PEAK_BY_KIND:
+        raise KeyError(
+            f"no published peak for device_kind {kind!r}; add it to "
+            "utils/flops._PEAK_BY_KIND with its source"
+        )
+    return _PEAK_BY_KIND[kind][precision]
 
 
 def ba_solve_flops(n_obs: int, n_pts: int, n_cams: int, n_intr: int,

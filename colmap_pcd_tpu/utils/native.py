@@ -1,6 +1,7 @@
 """ctypes bindings for the native host runtime (cpp/native.cpp).
 
-Builds the shared library on first use (g++, seconds); every consumer has a
+Builds the shared library on first use ($CXX or g++, seconds; no make
+needed); every consumer has a
 pure-Python/numpy fallback, so the package works without a toolchain — the
 native path is the fast host-side kd-tree (FLANN's role in the reference) and
 the bulk correspondence graph.
@@ -18,13 +19,15 @@ import numpy as np
 _lock = threading.Lock()
 _lib = None
 _tried = False
+build_error: str | None = None  # why the library is unavailable, if it is
 
+_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 _CPP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "cpp")
 
 
 def get_lib():
     """The loaded native library, or None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, build_error
     with _lock:
         if _tried:
             return _lib
@@ -45,13 +48,22 @@ def get_lib():
                 with open(hash_file) as f:
                     built_hash = f.read().strip()
             if not os.path.exists(so) or built_hash != src_hash:
-                subprocess.run(
-                    ["make", "-sB"], cwd=_CPP_DIR, check=True, capture_output=True
-                )
+                cmd = [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", so, src]
+                try:
+                    subprocess.run(cmd + ["-fopenmp"], check=True, capture_output=True)
+                except subprocess.CalledProcessError:
+                    # toolchains without the OpenMP runtime (no libgomp.spec):
+                    # native.cpp guards every pragma with _OPENMP, so the
+                    # serial build is the same library, single-threaded
+                    subprocess.run(cmd, check=True, capture_output=True)
                 with open(hash_file, "w") as f:
                     f.write(src_hash)
             lib = ctypes.CDLL(so)
-        except Exception:
+        except Exception as e:
+            err = getattr(e, "stderr", None)
+            build_error = f"{type(e).__name__}: {e}" + (
+                f" ({err.decode(errors='replace').strip()[-500:]})" if err else ""
+            )
             return None
         c_fp = ctypes.POINTER(ctypes.c_float)
         c_i32 = ctypes.POINTER(ctypes.c_int32)

@@ -4,7 +4,7 @@ controllable thread wrapper.
 Parity with src/util/threading.{h,cc} (Thread / ThreadPool / JobQueue —
 the reference's entire "scheduler", SURVEY.md §2.8): the feature-extraction
 pipeline's read->extract->write stages (feature/extraction.h:50-148) map onto
-Pipeline below, with the device-facing stage single-threaded (one TPU stream)
+Pipeline below, with the device-facing stage single-threaded (one device stream)
 and IO stages fanned out.
 """
 
@@ -110,7 +110,7 @@ def pipeline_map(
     """read(parallel) -> device(serial) -> write(serial) staged pipeline.
 
     `produce(item)` runs on IO threads, `device_stage(item, produced)` on the
-    caller thread (keeps one TPU stream, overlapped with IO), `consume(item,
+    caller thread (keeps one device stream, overlapped with IO), `consume(item,
     result)` on a single writer thread (e.g. SQLite, which wants one writer —
     same topology as SiftFeatureExtractor's resizer/extractor/writer stages).
     """

@@ -2,12 +2,12 @@
 //
 // The reference's host-side native core is FLANN (kd-tree, via PCL) and the
 // C++ CorrespondenceGraph (src/base/correspondence_graph.{h,cc}); this file
-// provides the same roles for the TPU build's host side:
+// provides the same roles for this build's host side:
 //
 //   * kdtree_*   — exact 3D kd-tree: build once over the lidar map, batched
 //                  1-NN / radius queries, OpenMP-parallel. Used as the
 //                  host-side NN path (oracle + overlap with device work);
-//                  the blocked-matmul TPU path (ops/pointcloud.nn_query)
+//                  the blocked brute-force scan (ops/pointcloud.nn_query)
 //                  remains the device-side implementation.
 //   * cg_*       — correspondence graph: CSR adjacency over (image, feature)
 //                  keys with bulk build and batched queries, replacing

@@ -12,12 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("COLMAP_PCD_TPU_CACHE", "/tmp/jax_cache_colmap_pcd"),
-)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from colmap_pcd_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from colmap_pcd_tpu.ops import ba as ba_ops
 from ba_microbench import synth_problem, SHAPES

@@ -14,9 +14,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_colmap_pcd")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from colmap_pcd_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from colmap_pcd_tpu.ops import ransac as ransac_ops
 

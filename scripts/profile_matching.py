@@ -19,9 +19,9 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_colmap_pcd")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from colmap_pcd_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from colmap_pcd_tpu.models.database import Database
 from colmap_pcd_tpu.models.feature_pipeline import (
@@ -37,10 +37,9 @@ CHUNK = int(os.environ.get("PROF_CHUNK", "16"))
 
 
 def main():
-    from PIL import Image as PILImage
-
     from render import render_corridor
     from bench import make_gt
+    from colmap_pcd_tpu.utils import image as image_utils
 
     tmp = tempfile.mkdtemp(prefix="profmatch_")
     img_dir = os.path.join(tmp, "imgs")
@@ -49,9 +48,7 @@ def main():
     t0 = time.time()
     for i, (q, t) in enumerate(gt):
         im = render_corridor(q, t, W, H, F)
-        PILImage.fromarray((im * 255).astype(np.uint8)).save(
-            os.path.join(img_dir, f"v{i:04d}.png")
-        )
+        image_utils.write_png(os.path.join(img_dir, f"v{i:04d}.png"), (im * 255).astype(np.uint8))
     print(f"rendered {N_IMAGES} in {time.time()-t0:.1f}s", flush=True)
 
     dbp = os.path.join(tmp, "db.db")

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Profile per-image registration cost growth at scale (CPU backend).
+"""Profile per-image registration cost growth at scale.
 
 Runs the synthetic-keypoints mapping path at N images and prints the
 per-image wall time curve plus the phase breakdown, so growth terms
 (host loops / growing problem sizes) can be identified and fixed.
 
 Usage: python scripts/profile_scale.py [n_images] [--cprofile]
+(JAX_PLATFORMS=cpu profiles the host-side growth terms without a GPU.)
 """
 
 import os
@@ -20,10 +21,6 @@ if "xla_force_host_platform_device_count" not in xla_flags:
 
 sys.path.insert(0, "tests")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-jax.config.update("jax_default_device", jax.devices("cpu")[0])
 
 import numpy as np
 

@@ -8,6 +8,7 @@ Usage: python scripts/run_synthetic_demo.py [out_dir] [n_images]
 
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -17,7 +18,7 @@ import numpy as np
 
 
 def main():
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/colmap_pcd_demo"
+    out = sys.argv[1] if len(sys.argv) > 1 else tempfile.mkdtemp(prefix="colmap_pcd_demo_")
     n_images = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     os.makedirs(out, exist_ok=True)
 

@@ -16,14 +16,14 @@ from colmap_pcd_tpu.models.reconstruction import (
 from synthetic import ate_rmse, make_world
 
 
-def test_pose_ply_roundtrip(rng):
+def test_pose_ply_roundtrip(rng, tmp_path):
     rec, graph, lmap, gt = make_world(rng, n_images=5, n_points=200)
     for i, (q, t) in enumerate(gt, 1):
         rec.images[i].qvec = q
         rec.images[i].tvec = t
         if i != 3:  # leave one unregistered -> nan row
             rec.register_image(i)
-    path = "/tmp/pose_test.ply"
+    path = str(tmp_path / "pose_test.ply")
     save_image_poses(path, rec)
     loaded = load_image_poses(path)
     assert 3 not in loaded  # nan row skipped

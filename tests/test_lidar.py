@@ -5,6 +5,7 @@ lidar layer (SURVEY.md §4) — these are the ground-truth checks it never had.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from colmap_pcd_tpu.io import ply as ply_io
 from colmap_pcd_tpu.models import lidar_map as lm
@@ -119,7 +120,7 @@ def test_depth_projection_zbuffer_prefers_near():
 def test_nn_query_exact(rng):
     m = _wall_map()
     queries = np.asarray([[0.1, 0.2, 9.5], [1.0, 2.1, 5.0]], np.float32)
-    for backend in ("host", "tpu"):
+    for backend in ("host", "device"):
         pts, nrm, dist = m.nn_query(queries, backend=backend)
         # brute-force oracle
         for i, qp in enumerate(queries):
@@ -171,3 +172,21 @@ def test_voxel_downsample():
     pts, nrm = m.voxel_downsample(0.5)
     assert pts.shape[0] < m.num_points // 10
     assert np.isfinite(pts).all()
+
+
+@pytest.mark.parametrize("pad_to", [None, 100])
+def test_nn_query_device_backend_exact(rng, pad_to):
+    """Device backend (ops/pointcloud.nn_query) at corridor-scale coordinates:
+    a map size that is no block multiple, queries padded with pad_to."""
+    pts = rng.uniform([-4, -2, 0], [4, 2, 100], (3001, 3)).astype(np.float32)
+    nrm = np.tile(np.asarray([[0, 0, 1.0]], np.float32), (pts.shape[0], 1))
+    m = lm.LidarMap.from_arrays(pts, nrm)
+    q = (pts[rng.integers(0, len(pts), 37)] + rng.normal(0, 0.3, (37, 3))).astype(np.float32)
+    got, got_n, dist = m.nn_query(q, pad_to=pad_to, backend="device")
+    d = np.linalg.norm(q[:, None, :].astype(np.float64) - m.points[None].astype(np.float64), axis=-1)
+    j = d.argmin(axis=1)
+    np.testing.assert_array_equal(got, m.points[j])
+    np.testing.assert_array_equal(got_n, m.normals[j])
+    np.testing.assert_allclose(dist, d.min(axis=1), atol=1e-5)
+    with pytest.raises(ValueError):
+        m.nn_query(q, backend="kdtree")

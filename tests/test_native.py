@@ -1,6 +1,10 @@
 """Native C++ runtime tests: kd-tree vs numpy oracle, correspondence graph
 CSR vs the Python graph."""
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 
 from colmap_pcd_tpu.utils import native
@@ -8,7 +12,32 @@ from colmap_pcd_tpu.utils import native
 
 def test_native_lib_builds():
     lib = native.get_lib()
-    assert lib is not None, "g++ build of cpp/native.cpp failed"
+    assert lib is not None, f"g++ build of cpp/native.cpp failed: {native.build_error}"
+
+
+def test_native_lib_builds_without_openmp_runtime(tmp_path, monkeypatch, rng):
+    """A toolchain lacking libgomp.spec rejects -fopenmp; the build falls back
+    to the serial library, which answers the same queries."""
+    shutil.copy(os.path.join(native._CPP_DIR, "native.cpp"), tmp_path)
+    monkeypatch.setattr(native, "_CPP_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    real_run, cmds = subprocess.run, []
+
+    def run(cmd, **kw):
+        cmds.append(cmd)
+        if "-fopenmp" in cmd:
+            raise subprocess.CalledProcessError(1, cmd, stderr=b"cannot read spec file")
+        return real_run(cmd, **kw)
+
+    monkeypatch.setattr(native.subprocess, "run", run)
+    assert native.get_lib() is not None, native.build_error
+    assert len(cmds) == 2 and "-fopenmp" not in cmds[1]
+    pts = rng.normal(size=(500, 3)).astype(np.float32)
+    q = rng.normal(size=(20, 3)).astype(np.float32)
+    idx, _ = native.NativeKdTree(pts).nn(q)
+    d = np.linalg.norm(pts[None] - q[:, None], axis=-1)
+    np.testing.assert_array_equal(idx, d.argmin(axis=1))
 
 
 def test_kdtree_nn_exact(rng):

@@ -14,7 +14,7 @@ from colmap_pcd_tpu.utils import prewarm
 
 def test_record_save_replay(tmp_path, monkeypatch):
     path = str(tmp_path / "journal.json")
-    monkeypatch.setenv("COLMAP_PCD_TPU_SHAPE_JOURNAL", path)
+    monkeypatch.setenv("COLMAP_PCD_SHAPE_JOURNAL", path)
     prewarm._SEEN.clear()
     prewarm._ENTRIES.clear()
 

@@ -1,5 +1,5 @@
 """SIFT extractor tests: detection on known structure, shift covariance,
-rotation invariance of descriptors (matched via the MXU matcher)."""
+rotation invariance of descriptors (matched via the matmul matcher)."""
 
 import jax.numpy as jnp
 import numpy as np
