@@ -45,9 +45,11 @@ _PEAK_BY_KIND = {
     "NVIDIA H100 80GB HBM3": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12},
 }
 
-# The counted FLOPs are ~96% bundle adjustment (ops/ba.py), whose Schur
-# einsums run at HIGH — a TF32 cuBLAS GEMM on the H100 (measured by
-# chip_smoke's precision probe) — so utilisation divides by the TF32 rate.
+# The counted FLOPs are ~96% bundle adjustment (ops/ba.py). In its compiled
+# HLO on the H100, 99.8% (local bucket) to 99.97% (global bucket) of the
+# contraction FLOPs are cuBLAS GEMMs at HIGH (scripts/ba_hlo_precision.py),
+# which cuBLAS runs as TF32 (chip_smoke's precision probe), so utilisation
+# divides by the TF32 rate.
 COUNTED_PRECISION = "tf32"
 
 

@@ -11,7 +11,7 @@ from colmap_pcd_tpu.utils import image as iu
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3), (20, 31, 4), (12, 9, 2)])
-def test_png_roundtrip_against_pillow(shape, tmp_path, rng):
+def test_png_roundtrip_against_pillow(shape, tmp_path, rng, monkeypatch):
     a = rng.integers(0, 256, shape, dtype=np.uint8)
     ours = str(tmp_path / "ours.png")
     iu.write_png(ours, a)
@@ -20,10 +20,26 @@ def test_png_roundtrip_against_pillow(shape, tmp_path, rng):
     theirs = str(tmp_path / "theirs.png")
     PILImage.fromarray(a).save(theirs)
     np.testing.assert_array_equal(iu._read_png(theirs), a)
-    for mode in ("L", "RGB"):
-        ref = np.asarray(PILImage.open(theirs).convert(mode))
+    refs = {m: np.asarray(PILImage.open(theirs).convert(m)) for m in ("L", "RGB")}
+    monkeypatch.setitem(sys.modules, "PIL", None)  # the built-in reader
+    for mode, ref in refs.items():
         np.testing.assert_array_equal(iu._read(theirs, mode), ref)
     assert iu.image_size(theirs) == (shape[1], shape[0])
+
+
+def test_read_decodes_with_pillow_when_it_imports(tmp_path, rng, monkeypatch):
+    """The built-in reader is only the fallback: its Paeth loop is slow."""
+    a = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    p = str(tmp_path / "a.png")
+    PILImage.fromarray(a).save(p)
+
+    def unused(path):
+        raise AssertionError("built-in reader used although Pillow imports")
+
+    monkeypatch.setattr(iu, "_read_png", unused)
+    np.testing.assert_array_equal(iu.imread_rgb(p), a)
+    np.testing.assert_array_equal(
+        iu.imread_gray_u8(p), np.asarray(PILImage.open(p).convert("L")))
 
 
 def test_png_palette_and_smooth_image(tmp_path, rng):

@@ -190,3 +190,15 @@ def test_nn_query_device_backend_exact(rng, pad_to):
     np.testing.assert_allclose(dist, d.min(axis=1), atol=1e-5)
     with pytest.raises(ValueError):
         m.nn_query(q, backend="kdtree")
+
+
+def test_nn_query_host_without_native_names_the_build_error(monkeypatch):
+    from colmap_pcd_tpu.utils import native
+
+    m = _wall_map()
+    m._host_tree = False  # as when the native library failed to build
+    monkeypatch.setattr(native, "build_error", "CalledProcessError: g++ failed")
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
+        m.nn_query(np.zeros((2, 3), np.float32), backend="host")
+    pts, _, _ = m.nn_query(np.zeros((2, 3), np.float32), backend="auto")  # device scan
+    assert pts.shape == (2, 3)
